@@ -11,8 +11,8 @@ projector.py:30-31 — a bias bug not reproduced; see ops/projection.py).
 The reference parallelizes builds across coreset sizes with a 100-process
 multiprocessing.Pool (zellner_logreg/main.py:177-179). Here a single build
 is one compiled scan, and :func:`bpsvi_build_batch` pads sizes to the max
-and ``vmap``s the whole optimization across them — the TPU replacement
-(SURVEY.md section 7 delta 6): padded slots get zero weight and zero
+and ``vmap``s the whole optimization across them — the accelerator
+replacement (SURVEY.md section 7 delta 6): padded slots get zero weight and zero
 gradient, so each lane reproduces its standalone build.
 """
 

@@ -170,7 +170,7 @@ def poisson_overflow_p(n: int, q: float, cap: int) -> float:
 def poisson_batch_cap(n: int, q: float) -> int:
     """Fixed XLA buffer capacity for a Poisson batch: mean + 10 sigma + 16
     rows (overflow probability < 1e-16 per step via ``poisson_overflow_p``),
-    rounded up to 8 for TPU-friendly row tiles."""
+    rounded up to 8 for aligned row tiles."""
     mean = n * q
     sd = math.sqrt(max(n * q * (1.0 - q), 1.0))
     cap = int(math.ceil(mean + 10.0 * sd + 16.0))

@@ -8,9 +8,9 @@ vector is the SUM of its members' projections (bcores.py:50,60) — and
 appends every member of the winning group with zero initial weight; weight
 refinement then runs at the individual-point level.
 
-TPU design: group vectors come from one full (N, S) projection followed by
-a one-hot MXU matmul over the per-point group-id vector (segment_sum's
-scatter-add serializes on TPU — see ONEHOT_MAX_BYTES below), instead of
+Design: group vectors come from one full (N, S) projection followed by a
+one-hot matmul over the per-point group-id vector (or segment_sum's
+scatter-add — see ONEHOT_MAX_BYTES below), instead of
 the reference's Python loop of per-group projections; the refinement
 target needs no per-group split at all and reduces in the projection pass. Appending a variable-size group under static shapes scatters a
 padded (L_max,) member block with out-of-range drop.
@@ -38,13 +38,13 @@ from .incremental import IncrementalConfig
 from .state import CoresetState
 
 
-# The (G, S) group reduction as an MXU matmul: XLA lowers segment_sum to a
-# scatter-add, which serializes on TPU (measured ~an order over the
-# projection cost at webspam scale — RESULTS.md group roofline), while
-# onehot.T @ vecs is one (G, N) x (N, S) dot. The onehot is an (N, G)
-# f32 materialization, so gate on its HBM footprint (N*G*4 bytes) and keep
-# the scatter fallback for huge G*N (module-level so tests can patch the
-# gate and pin the two paths against each other).
+# The (G, S) group reduction has two plain-XLA forms: segment_sum, which
+# XLA lowers to a scatter-add, and onehot.T @ vecs, one (G, N) x (N, S)
+# dot. The onehot is an (N, G) f32 materialization, so the dot is used only
+# while its footprint (N*G*4 bytes) stays under this gate, and the scatter
+# takes huge G*N (module-level so tests can patch the gate and pin the two
+# paths against each other). Which form is faster on a GPU, and so where
+# the gate belongs, is not measured yet (ROADMAP.md).
 ONEHOT_MAX_BYTES = 256 * 1024 * 1024
 
 

@@ -49,7 +49,7 @@ def warm_start_state(max_size: int, wts, idcs, pts, beta: float = 0.5,
     acquisition at zellner_neural_linear/main.py:146-150).
 
     Padding is assembled host-side in numpy and transferred once: eager
-    ``.at[:k].set`` with data-dependent k would compile a fresh tiny TPU
+    ``.at[:k].set`` with data-dependent k would compile a fresh tiny
     executable per distinct coreset size."""
     import numpy as np
 

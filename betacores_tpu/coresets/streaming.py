@@ -11,7 +11,7 @@ the full-data tangent vector ``sum_n v_n``, because each leaf build made
 the composition inherits the per-level approximation guarantees (merge &
 reduce in the coreset literature; Feldman et al.).
 
-TPU mapping:
+Device mapping:
   * every chunk is padded to one static shape, so ALL leaf builds share ONE
     compiled XLA program (the builder takes data + base-weights as jit
     arguments — incremental.py::_bind);

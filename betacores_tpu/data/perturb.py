@@ -32,9 +32,8 @@ def perturb_logreg(key: jax.Array, X: jnp.ndarray, y: jnp.ndarray,
     o = int(N * f_rate)
     kx, ky, kc, kn, ks = jax.random.split(key, 5)
     # Corruption indices are drawn (and uniq'd) HOST-SIDE: jnp.unique is a
-    # dynamic-shape op whose device-to-host sync can FailedPrecondition under
-    # a contended remote backend (round-1 BENCH crash), and the index set is
-    # bookkeeping, not compute.
+    # dynamic-shape op that needs a device-to-host sync, and the index set
+    # is bookkeeping, not compute.
     idxx = np.asarray(jax.random.randint(kx, (o,), 0, N)) if o else np.zeros(0, dtype=np.int32)
     if not structured:
         idxy = np.asarray(jax.random.randint(ky, (o,), 0, N)) if o else np.zeros(0, dtype=np.int32)

@@ -1,4 +1,4 @@
-"""TPU-native MCMC for coreset-posterior evaluation.
+"""On-device MCMC for coreset-posterior evaluation.
 
 Replaces the reference's PyStan NUTS evaluation sampler (reference:
 examples/common/mcmc.py:21-59; weighted-likelihood Stan programs at
@@ -104,11 +104,11 @@ def _leapfrog_trajectory(key, logprob_and_grad, theta, eps, L, L_max, inv_mass):
 def make_precise_logprob_and_grad(logprob):
     """value_and_grad of the target at full f32 matmul precision.
 
-    TPU matmuls default to bf16 passes; the target's x @ th products (and
-    their grads) then carry ~2^-8 relative error, which is catastrophic for
-    leapfrog energies on sharply curved posteriors (measured:
-    weighted-Poisson chains stuck at R-hat ~600 on a v5e while
-    bit-identical CPU runs mix at R-hat 1.005). The targets are tiny
+    At default precision a GPU may run float32 products in TF32 (10-bit
+    mantissa); the target's x @ th products (and their grads) then carry
+    ~1e-3 relative error, which is catastrophic for leapfrog energies on
+    sharply curved posteriors: the Hamiltonian's error no longer shrinks
+    with the step size, so chains stop mixing. The targets are tiny
     (M x d), so full f32 precision costs nothing."""
     def _lp(th):
         with jax.default_matmul_precision("highest"):

@@ -14,7 +14,7 @@ quadratically; from a warm start 2-3 iterations reach float32 precision.
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, NamedTuple
 
 import jax
 import jax.numpy as jnp
@@ -25,9 +25,6 @@ class LaplaceApprox(NamedTuple):
     mu: jnp.ndarray          # (d,) mode of the weighted log-joint
     prec_chol: jnp.ndarray   # (d, d) lower chol of -Hessian at the mode
     # diagonal variant: prec_chol holds sqrt(-diag_hess) on the diagonal
-    # L^-1 (lower), populated only by newton_laplace(with_inverse=True) —
-    # the fused-step build path consumes it directly (theta = mu + z L^-1)
-    prec_chol_inv: Optional[jnp.ndarray] = None
 
 
 # Backtracking grid: candidate step sizes tried per Newton iteration.
@@ -43,19 +40,10 @@ def newton_laplace(
     hess: Callable[[jnp.ndarray], jnp.ndarray],
     mu0: jnp.ndarray,
     n_iters: int = 8,
-    with_inverse: bool = False,
 ) -> LaplaceApprox:
     """Maximize a concave log-joint by damped Newton with a static
     backtracking grid (each candidate evaluation is O(M d) — tiny next to
     the N x S projection work).
-
-    ``with_inverse=True`` computes the Newton direction through the explicit
-    triangular inverse L^-1 (p = L^-T (L^-1 g), lam2 = ||L^-1 g||^2 — the
-    same quantities, fewer dependent kernels than cho_solve's two solves)
-    and returns it in ``prec_chol_inv``. The fused-step build consumes
-    L^-1 directly every Adam step (theta = mu + z L^-1), so producing it
-    inside the refit replaces a cho_solve pair AND the caller's separate
-    triangular inversion — the hot loop is latency-bound (RESULTS.md).
 
     The loop is adaptive: it stops once the Newton decrement
     lambda^2 = g . (-H)^{-1} g falls below ``tol`` relative to |log_joint|
@@ -82,20 +70,12 @@ def newton_laplace(
         H = hess(mu)
         # Newton direction: solve (-H) p = g ; -H is SPD for concave targets.
         L = jnp.linalg.cholesky(-H)
-        if with_inverse:
-            linv = jax.scipy.linalg.solve_triangular(
-                L, jnp.eye(L.shape[0], dtype=L.dtype), lower=True)
-            pg = linv @ g
-            p = linv.T @ pg
-            lam2 = pg @ pg  # = g (-H)^-1 g, via the same factor
-        else:
-            linv = L  # placeholder: carry structure must not depend on data
-            p = jax.scipy.linalg.cho_solve((L, True), g)
-            lam2 = g @ p  # Newton decrement^2: predicted improvement scale
-        return L, linv, p, lam2
+        p = jax.scipy.linalg.cho_solve((L, True), g)
+        lam2 = g @ p  # Newton decrement^2: predicted improvement scale
+        return L, p, lam2
 
     f0 = log_joint(mu0)
-    L0, linv0, p0, lam20 = eval_at(mu0)
+    L0, p0, lam20 = eval_at(mu0)
     # the body promotes mu through the Newton step (e.g. an f32 warm-start
     # mode against f64 data), so the carry must start at the promoted dtype
     # or while_loop rejects the carry type mismatch
@@ -104,10 +84,10 @@ def newton_laplace(
     done0 = lam20 <= tol * (1.0 + jnp.abs(f0))
 
     def cond(carry):
-        return (carry[5] < n_iters) & ~carry[6]
+        return (carry[4] < n_iters) & ~carry[5]
 
     def body(carry):
-        mu, f, _, _, p, it, _ = carry
+        mu, f, _, p, it, _ = carry
         # grid cast to the carry dtype: f64 _TS must not promote an f32 mu
         # (scan carry type mismatch under enable_x64)
         cands = mu[None, :] + jnp.asarray(_TS, dtype=mu.dtype)[:, None] * p[None, :]
@@ -117,16 +97,15 @@ def newton_laplace(
         improved = vals[best] > f
         mu_new = jnp.where(improved, cands[best], mu)
         f_new = jnp.where(improved, vals[best], f)
-        L2, linv2, p2, lam2 = eval_at(mu_new)
+        L2, p2, lam2 = eval_at(mu_new)
         # ~improved exits: retrying the identical step cannot succeed
         done = (lam2 <= tol * (1.0 + jnp.abs(f_new))) | ~improved
-        return mu_new, f_new, L2, linv2, p2, it + 1, done
+        return mu_new, f_new, L2, p2, it + 1, done
 
-    mu, _, L, linv, _, _, _ = jax.lax.while_loop(
+    mu, _, L, _, _, _ = jax.lax.while_loop(
         cond, body,
-        (mu0, f0, L0, linv0, p0, jnp.asarray(0, dtype=jnp.int32), done0))
-    return LaplaceApprox(mu=mu, prec_chol=L,
-                         prec_chol_inv=linv if with_inverse else None)
+        (mu0, f0, L0, p0, jnp.asarray(0, dtype=jnp.int32), done0))
+    return LaplaceApprox(mu=mu, prec_chol=L)
 
 
 def newton_laplace_diag(

@@ -1,4 +1,4 @@
-"""Dynamic-trajectory NUTS, iterative and static-shape (jit/TPU friendly).
+"""Dynamic-trajectory NUTS, iterative and static-shape (jit friendly).
 
 The reference evaluates coreset posteriors with Stan's NUTS
 (reference examples/common/mcmc.py:21-59: adapt_delta=0.9,

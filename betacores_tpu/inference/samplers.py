@@ -107,7 +107,7 @@ def logreg_laplace_sampler(diag: bool = False, n_newton: int = 8,
     (reference zellner_logreg/main.py:139-144). ``aux`` is the previous mode
     (warm start); pass zeros initially."""
 
-    def _fit(wts, pts, aux, with_inverse: bool = False):
+    def _fit(wts, pts, aux):
         mu_ws = aux if warm_start else jnp.zeros_like(aux)
         lj = lambda th: logreg_model.log_joint(pts, th, wts)
         g = lambda th: logreg_model.grad_th_log_joint(pts, th, wts)
@@ -115,8 +115,7 @@ def logreg_laplace_sampler(diag: bool = False, n_newton: int = 8,
             dh = lambda th: logreg_model.diag_hess_th_log_joint(pts, th, wts)
             return newton_laplace_diag(lj, g, dh, mu_ws, n_iters=n_newton + 4)
         h = lambda th: logreg_model.hess_th_log_joint(pts, th, wts)
-        return newton_laplace(lj, g, h, mu_ws, n_iters=n_newton,
-                              with_inverse=with_inverse)
+        return newton_laplace(lj, g, h, mu_ws, n_iters=n_newton)
 
     def from_noise(z, wts, pts, aux):
         lap = _fit(wts, pts, aux)
@@ -132,12 +131,6 @@ def logreg_laplace_sampler(diag: bool = False, n_newton: int = 8,
     sampler.fit = _fit
     sampler.from_fit = sample_laplace_from_noise
     sampler.fit_aux = lambda lap: lap.mu
-    if not diag:
-        # fit that also returns L^-1 (Newton direction computed through it —
-        # same math, fewer dependent kernels): the fused-step build consumes
-        # L^-1 directly each Adam step, see coresets/incremental.py
-        sampler.fit_inv = lambda wts, pts, aux: _fit(wts, pts, aux,
-                                                     with_inverse=True)
     return sampler
 
 
@@ -146,11 +139,9 @@ def multiclass_laplace_sampler(n_classes: int, n_newton: int = 12,
     """Laplace sampler for K-class softmax regression (models/multiclass.py;
     beyond reference — the reference binarizes every multiclass dataset).
     theta is packed (K*d,); gradient and Hessian are the ANALYTIC softmax
-    GLM forms (models/multiclass.py, verified equal to autodiff; measured
-    on-par with jax.hessian inside the compiled refit chain — 84 vs 74
-    us/refit on v5e at K=5, d=10, M=128 — kept for the explicit math and
-    the N-row eval fits where reverse-over-forward autodiff would trace the
-    joint K*d times). ``aux`` is the previous packed mode."""
+    GLM forms (models/multiclass.py, verified equal to autodiff; kept for
+    the explicit math and the N-row eval fits where reverse-over-forward
+    autodiff would trace the joint K*d times). ``aux`` is the previous packed mode."""
     from ..models import multiclass as mc_model
 
     lj_of = mc_model.make_log_joint(n_classes)

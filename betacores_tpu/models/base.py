@@ -45,32 +45,6 @@ class ModelFns(NamedTuple):
     beta_gradient: Optional[Callable] = None
     # (N, D), (S, d) -> (N, S, D): gradient w.r.t. the data point (BPSVI)
     grad_z_log_likelihood: Optional[Callable] = None
-    # optional single-HBM-pass Pallas projections returning CENTERED (N, S)
-    # matrices (ops/pallas_kernels.py); used by the projection engine for
-    # large row blocks
-    fused_ll_projection: Optional[Callable] = None      # (pts, thetas) -> (N, S)
-    fused_beta_projection: Optional[Callable] = None    # (pts, thetas, beta) -> (N, S)
-    # optional single-launch Pallas REFINEMENT STEP for the incremental
-    # builder's latency-bound Adam hot loop (samples-from-noise + joint
-    # projection + centering + residual + weight gradient + projected-Adam
-    # update in ONE kernel; ops/pallas_kernels.py::logreg_adam_step_fused).
-    # Signature (xin, z, mu, linv, w, m1, m2, sc, sclr, s_true) ->
-    # (w', m1', m2'); routed by coresets/incremental.py when the sampler is
-    # a Laplace family (fit/from_fit) — see IncrementalConfig.fused_grad_step
-    fused_ll_grad_step: Optional[Callable] = None
-    fused_beta_grad_step: Optional[Callable] = None
-    # optional single-launch Pallas SHARD-LOCAL refinement-step partials for
-    # the SHARDED incremental builder (parallel/sharded.py fused branch):
-    # samples from this device's pre-drawn noise column block + joint
-    # [local subsample; coreset] projection + every local reduction the
-    # distributed gradient needs, in one launch; the two psums and an O(M)
-    # Adam epilogue stay outside (ops/pallas_kernels.py::
-    # logreg_shard_step_partials). Signature
-    # (xin, z_loc, mu, linv, w_row, sc, s_loc_true) ->
-    # (colsum (1, s_pad), core (M_pad, s_pad), corerow (1, M_pad),
-    #  wcore (1, s_pad)).
-    fused_ll_shard_partials: Optional[Callable] = None
-    fused_beta_shard_partials: Optional[Callable] = None
 
 
 def beta_gradient_from_autodiff(beta_likelihood: Callable) -> Callable:

@@ -7,7 +7,7 @@ end-to-end KL validation (reference: examples/zellner_gaussian/main.py:157-167).
 
 All (N, S) kernels are built around one pairwise squared-Mahalanobis matrix
 d2[n, s] = (x_n - th_s)^T Siginv (x_n - th_s); the N x S cross term is a
-single MXU matmul, so the hot projection path is compute-bound on TPU.
+single matmul.
 
 NOTE on a reference bug not reproduced here: the reference's
 ``weighted_post`` (gaussian.py:28-32) composes the triangular factors in the
@@ -144,14 +144,10 @@ def gaussian_KL(mu0, Sig0, mu1, Sig1inv):
     return 0.5 * (t1 + t2 + t3 - mu0.shape[0])
 
 
-def bundle(Siginv, logdetSig, fused: bool | None = None) -> ModelFns:
-    """ModelFns closure over the fixed observation covariance. ``fused`` is
-    accepted for API stability but there is no Gaussian Pallas kernel
-    anymore: the projection is one matmul + elementwise + centering, which
-    XLA fuses to a single HBM pass on its own — the hand-written kernel
-    measured 4.0 ms vs XLA's 1.6 ms at N=2^20 x S=100 on v5e and was
-    retired (RESULTS.md round-2 microbenchmark audit)."""
-    del fused
+def bundle(Siginv, logdetSig) -> ModelFns:
+    """ModelFns closure over the fixed observation covariance. The
+    projection is one matmul + elementwise + centering, which XLA fuses to
+    a single pass on its own."""
     blik = partial(beta_likelihood, Siginv=Siginv, logdetSig=logdetSig)
 
     def _blik(pts, thetas, beta):

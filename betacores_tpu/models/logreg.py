@@ -8,8 +8,8 @@ model_lr.py's ``std_cov`` returns Z = Y[:, None] * X), so
 
 Prior: th ~ N(0, I) (reference model_lr.py:88-90).
 
-The (N, S) projection kernels reduce to one N x S MXU matmul M = Z @ Th.T
-followed by elementwise VPU transforms — the shape XLA fuses best on TPU.
+The (N, S) projections reduce to one N x S matmul M = Z @ Th.T followed by
+elementwise transforms, which XLA fuses into one pass.
 Stability: the reference guards exp overflow with an m < 100 branch
 (model_lr.py:75-79); we use mathematically-identical softplus/logsumexp
 forms that are stable for all inputs and branch-free (jit/vmap friendly).
@@ -128,43 +128,12 @@ def predictive_loglik(Zt, thetas):
     return jnp.mean(jax.scipy.special.logsumexp(ll, axis=1) - jnp.log(S))
 
 
-def bundle(fused: bool | None = None) -> ModelFns:
-    """``fused=None`` (default) attaches the single-launch Pallas GRAD-STEP
-    kernel (ops/pallas_kernels.py::logreg_grad_step_fused; routed on TPU by
-    coresets/incremental.py — headline build 0.95 s -> 0.70 s).
-    ``fused=False`` disables it. No fused *projection* kernel: a logreg
-    projection is one matmul + elementwise + centering, which XLA already
-    fuses to a single HBM pass — an earlier hand-written Pallas projection
-    measured 2.5 ms vs XLA's 1.5 ms at N=2^20 x S=100 on v5e and was
-    retired (RESULTS.md round-2 microbenchmark audit)."""
-    fused_ll_step = fused_beta_step = None
-    fused_ll_shard = fused_beta_shard = None
-    if fused is None or fused:
-        from ..ops.pallas_kernels import (logreg_adam_step_fused,
-                                          logreg_shard_step_partials)
-
-        def fused_ll_step(xin, z, mu, linv, w, m1, m2, sc, sclr, s_true):
-            return logreg_adam_step_fused(xin, z, mu, linv, w, m1, m2, sc,
-                                          sclr, s_true, use_beta=False)
-
-        def fused_beta_step(xin, z, mu, linv, w, m1, m2, sc, sclr, s_true):
-            return logreg_adam_step_fused(xin, z, mu, linv, w, m1, m2, sc,
-                                          sclr, s_true, use_beta=True)
-
-        def fused_ll_shard(xin, z, mu, linv, w, sc, s_true):
-            return logreg_shard_step_partials(xin, z, mu, linv, w, sc,
-                                              s_true, use_beta=False)
-
-        def fused_beta_shard(xin, z, mu, linv, w, sc, s_true):
-            return logreg_shard_step_partials(xin, z, mu, linv, w, sc,
-                                              s_true, use_beta=True)
+def bundle() -> ModelFns:
+    """ModelFns for Bayesian logistic regression. A projection is one
+    matmul + elementwise + centering, which XLA fuses on its own."""
     return ModelFns(
         log_likelihood=log_likelihood,
         beta_likelihood=beta_likelihood,
         beta_gradient=beta_gradient_from_autodiff(beta_likelihood),
         grad_z_log_likelihood=grad_z_log_likelihood,
-        fused_ll_grad_step=fused_ll_step,
-        fused_beta_grad_step=fused_beta_step,
-        fused_ll_shard_partials=fused_ll_shard,
-        fused_beta_shard_partials=fused_beta_shard,
     )

@@ -9,7 +9,7 @@ Data rows are z_n = [x_n, y_n] with the class label y in {0..K-1} stored as
 a float in the LAST column (the framework's single-(N, D)-array convention,
 like models/poisson.py). Parameters are a packed theta of dim K*d
 (row-major (K, d)); the (N, S) projection reduces to one (N, d) @ (d, S*K)
-MXU matmul followed by per-class VPU transforms.
+matmul followed by per-class elementwise transforms.
 
     log p(y | x, th) = x . th_y - logsumexp_k(x . th_k)
 
@@ -143,43 +143,18 @@ def predictive_loglik(Zt, thetas, n_classes: int):
     return jnp.mean(jax.scipy.special.logsumexp(ll, axis=1) - jnp.log(S))
 
 
-def bundle(n_classes: int, fused: bool | None = None) -> ModelFns:
+def bundle(n_classes: int) -> ModelFns:
     """ModelFns for a K-class softmax family. Pass
     ``theta_dim=n_classes * d_x`` to the projector constructors (packed
-    parameter rows, like models/mvn.py). ``fused`` gates the single-pass
-    Pallas projection (ops/pallas_kernels.py) exactly like logreg.bundle:
-    None = auto on TPU; the XLA composition materializes (N, S, K)
-    intermediates in HBM (measured 13x slower at N=2^20)."""
+    parameter rows, like models/mvn.py)."""
     if n_classes < 2:
         raise ValueError("n_classes must be >= 2")
     beta_likelihood = make_beta_likelihood(n_classes)
-    log_likelihood = make_log_likelihood(n_classes)
-    fused_ll = fused_beta = None
-    if fused is None or fused:
-        from ..ops.pallas_kernels import multiclass_projection_fused
-        from ..ops.projection import center
-
-        def _use_kernel() -> bool:
-            return fused or jax.default_backend() == "tpu"
-
-        def fused_ll(pts, th):
-            if _use_kernel():
-                return multiclass_projection_fused(pts, th, n_classes,
-                                                   use_beta=False)
-            return center(log_likelihood(pts, th))
-
-        def fused_beta(pts, th, b):
-            if _use_kernel():
-                return multiclass_projection_fused(pts, th, n_classes, beta=b,
-                                                   use_beta=True)
-            return center(beta_likelihood(pts, th, b))
     return ModelFns(
-        log_likelihood=log_likelihood,
+        log_likelihood=make_log_likelihood(n_classes),
         beta_likelihood=beta_likelihood,
         beta_gradient=beta_gradient_from_autodiff(beta_likelihood),
         grad_z_log_likelihood=make_grad_z_log_likelihood(n_classes),
-        fused_ll_projection=fused_ll,
-        fused_beta_projection=fused_beta,
     )
 
 

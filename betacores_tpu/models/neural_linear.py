@@ -1,10 +1,11 @@
 """Neural-linear model: deep feature extractor + exact Bayesian last layer.
 
 Spec: reference examples/common/neural.py (torch; derived from Pinsler &
-Gordon's active-bayesian-coresets) rebuilt in flax/optax:
+Gordon's active-bayesian-coresets) rebuilt in plain JAX + optax:
 
   * ``Encoder``: 2 x (Dense -> BatchNorm -> ReLU) feature extractor
-    (neural.py:126-133);
+    (neural.py:126-133), with a flax-style ``init``/``apply`` interface and
+    flax's parameter names;
   * ``bayesian_regression_posterior``: exact last-layer posterior
     theta_cov = sigsq (X'X + sigsq s I)^-1, theta_mean = theta_cov/sigsq X'y
     (neural.py:56-62), with the Student-t hyper-prior variant
@@ -29,7 +30,6 @@ import math
 from functools import partial
 from typing import Any, Callable, NamedTuple, Optional, Tuple
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -40,15 +40,66 @@ from .base import ModelFns, beta_gradient_from_autodiff
 from .gaussian import GaussianPosterior
 
 
-class Encoder(nn.Module):
-    out_features: int = 30
+class Encoder:
+    """2 x (Dense -> BatchNorm -> ReLU). Variables are
+    ``{"params": {"Dense_i": {"kernel", "bias"}, "BatchNorm_i": {"scale",
+    "bias"}}, "batch_stats": {"BatchNorm_i": {"mean", "var"}}}``.
 
-    @nn.compact
-    def __call__(self, x, train: bool = False):
-        for _ in range(2):
-            x = nn.Dense(self.out_features)(x)
-            x = nn.BatchNorm(use_running_average=not train, momentum=0.9)(x)
-            x = nn.relu(x)
+    BatchNorm contract (torch's BatchNorm1d as the reference uses it, and
+    flax's): in training it normalizes with the batch mean and biased
+    variance and moves the running statistics toward them,
+    ``r <- momentum * r + (1 - momentum) * batch``; in evaluation it
+    normalizes with the running statistics."""
+
+    n_layers = 2
+    momentum = 0.9
+    epsilon = 1e-5
+
+    def __init__(self, out_features: int = 30):
+        self.out_features = out_features
+
+    def init(self, key, x, train: bool = False):
+        del train
+        params, stats = {}, {}
+        fan_in = x.shape[-1]
+        F = self.out_features
+        for i, k in enumerate(jax.random.split(key, self.n_layers)):
+            # LeCun-normal kernel (truncated normal, variance 1/fan_in)
+            std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+            params[f"Dense_{i}"] = {
+                "kernel": std * jax.random.truncated_normal(
+                    k, -2.0, 2.0, (fan_in, F), x.dtype),
+                "bias": jnp.zeros((F,), x.dtype)}
+            params[f"BatchNorm_{i}"] = {"scale": jnp.ones((F,), x.dtype),
+                                        "bias": jnp.zeros((F,), x.dtype)}
+            stats[f"BatchNorm_{i}"] = {"mean": jnp.zeros((F,), x.dtype),
+                                       "var": jnp.ones((F,), x.dtype)}
+            fan_in = F
+        return {"params": params, "batch_stats": stats}
+
+    def apply(self, variables, x, train: bool = False, mutable=False):
+        """Features of ``x``. With ``mutable`` (training) also returns
+        ``{"batch_stats": updated running statistics}``."""
+        params, stats = variables["params"], variables["batch_stats"]
+        new_stats = {}
+        for i in range(self.n_layers):
+            dense, bn = params[f"Dense_{i}"], params[f"BatchNorm_{i}"]
+            x = x @ dense["kernel"] + dense["bias"]
+            run = stats[f"BatchNorm_{i}"]
+            if train:
+                mean = jnp.mean(x, axis=0)
+                var = jnp.mean(jnp.square(x), axis=0) - jnp.square(mean)
+                m = self.momentum
+                new_stats[f"BatchNorm_{i}"] = {
+                    "mean": m * run["mean"] + (1.0 - m) * mean,
+                    "var": m * run["var"] + (1.0 - m) * var}
+            else:
+                mean, var = run["mean"], run["var"]
+                new_stats[f"BatchNorm_{i}"] = run
+            x = (x - mean) * jax.lax.rsqrt(var + self.epsilon) * bn["scale"] + bn["bias"]
+            x = jax.nn.relu(x)
+        if mutable:
+            return x, {"batch_stats": new_stats}
         return x
 
 
@@ -118,8 +169,8 @@ def students_t_log_density(y, mean, var, nu):
 class NeuralLinear:
     """Eager neural-linear wrapper mirroring the reference's torch API
     (neural.py:112-250): ``encode``, ``update_batch``, ``optimize``,
-    ``test``, plus ``variables`` exposing the flax params as the builders'
-    ctx pytree. ``student_t=True`` gives the NeuralLinearTB variant."""
+    ``test``, plus ``variables`` exposing the encoder variables as the
+    builders' ctx pytree. ``student_t=True`` gives the NeuralLinearTB variant."""
 
     def __init__(self, Z_init: np.ndarray, out_features: int = 30,
                  output_mean: float = 0.0, output_std: float = 1.0,
@@ -276,8 +327,8 @@ def _batch_size_pow2(n: int) -> int:
 def _mask_kernels(params):
     """True for weight leaves that the reference decays: torch's
     named_parameters().endswith('weight') matches Linear weights AND
-    BatchNorm scales (neural.py:170-175) — flax names them 'kernel' and
-    'scale'; biases are undecayed."""
+    BatchNorm scales (neural.py:170-175) — the encoder names them 'kernel'
+    and 'scale'; biases are undecayed."""
     def walk(tree):
         if isinstance(tree, dict):
             return {k: (walk(v) if isinstance(v, dict) else k in ("kernel", "scale"))

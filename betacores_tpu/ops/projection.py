@@ -3,9 +3,9 @@
 Spec: reference bayesiancoresets/coreset/projector.py. A "projection" of a
 point z under S posterior samples {th_s} is the S-vector of centered
 (beta-)log-likelihoods  v_n = ll(z_n, th_s) - mean_s ll(z_n, th_s); coreset
-algorithms operate on the (N, S) matrix of these vectors. On TPU the matrix
-is one MXU matmul plus VPU elementwise work, so we always materialize the
-full (N, S) block per call and let XLA fuse the centering.
+algorithms operate on the (N, S) matrix of these vectors. The matrix is one
+matmul plus elementwise work, so we always materialize the full (N, S)
+block per call and let XLA fuse the centering.
 
 Design deltas vs the reference (SURVEY.md section 7):
   * subsampling indices and ``sum_scaling`` are explicit inputs/outputs with
@@ -32,24 +32,13 @@ def center(v: jnp.ndarray, axis: int = 1) -> jnp.ndarray:
     return v - v.mean(axis=axis, keepdims=True)
 
 
-def _use_fused(model, field, n_rows) -> bool:
-    from .pallas_kernels import maybe_fused
-
-    return getattr(model, field, None) is not None and maybe_fused(n_rows)
-
-
 def project_ll(model, pts, samples):
-    """Centered (N, S) log-likelihood projection (reference projector.py:23-26).
-    Large row blocks route to the model's fused Pallas kernel when present."""
-    if _use_fused(model, "fused_ll_projection", pts.shape[0]):
-        return model.fused_ll_projection(pts, samples)
+    """Centered (N, S) log-likelihood projection (reference projector.py:23-26)."""
     return center(model.log_likelihood(pts, samples))
 
 
 def project_beta(model, pts, samples, beta):
     """Centered (N, S) beta-likelihood projection (reference projector.py:51-55)."""
-    if _use_fused(model, "fused_beta_projection", pts.shape[0]):
-        return model.fused_beta_projection(pts, samples, beta)
     return center(model.beta_likelihood(pts, samples, beta))
 
 

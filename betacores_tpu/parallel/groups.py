@@ -122,10 +122,10 @@ def make_sharded_group_builder(
     def _dot_S(a, b):
         return jax.lax.psum(a @ b, SAMP_AXIS)
 
-    # (G, S_loc) group reduction as a local MXU matmul instead of the
-    # scatter-add XLA emits for segment_sum (serialized on TPU — RESULTS.md
-    # group roofline), gated on the local onehot's HBM footprint exactly
-    # like the single-device builder (shared gate constant there)
+    # (G, S_loc) group reduction as a local one-hot matmul or the
+    # scatter-add XLA emits for segment_sum, gated on the local onehot's
+    # footprint exactly like the single-device builder (shared gate
+    # constant there)
     def _group_vecs(data_local, gid_local, u_local, samples_loc, beta):
         """Replicated (G, S_loc) group tangent vectors: local projection +
         local group reduction, one psum('data'). Padding rows carry id G.

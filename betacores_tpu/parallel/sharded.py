@@ -1,6 +1,6 @@
-"""Sharded multi-chip coreset builds.
+"""Sharded multi-device coreset builds.
 
-TPU-native replacement for the reference's only parallelism
+Mesh replacement for the reference's only parallelism
 (multiprocessing.Pool, SURVEY.md section 2.5): the dataset's N axis is
 sharded over the mesh's ``data`` axis and the projection's posterior-sample
 S axis over the ``samp`` axis. Per build iteration:
@@ -12,7 +12,7 @@ S axis over the ``samp`` axis. Per build iteration:
     subsample, projects it, and scores it against the residual;
   * the Sigma-over-N residual term is one psum('data') of an S-slice, and
     every inner product over S is a psum('samp') — the only collectives,
-    both tiny, riding ICI;
+    both tiny;
   * greedy selection is a DISTRIBUTED ARGMAX: per-shard top-1 then an
     all_gather('data') of (score, global index, point) triples and a
     replicated argmax. Ties break toward the lower shard index, which
@@ -21,8 +21,8 @@ S axis over the ``samp`` axis. Per build iteration:
     subsample streams differ, so equivalence is statistical, not bitwise).
 
 The same mesh program compiles on a virtual CPU mesh
-(``--xla_force_host_platform_device_count``), which is how tests and the
-driver's ``dryrun_multichip`` validate it without multi-chip hardware.
+(``--xla_force_host_platform_device_count``), which is how tests and
+``dryrun_multichip`` rehearse it without several GPUs.
 """
 
 from __future__ import annotations
@@ -252,8 +252,8 @@ def make_sharded_incremental_builder(
                               and fit_aux is not None)
             if (draw_noise is not None and from_noise is not None
                     and n_opt_loc is not None):
-                # Single-chip fast-path parity (coresets/incremental.py
-                # fused/pre-drawn branch, ported shard-local): pre-draw the
+                # Single-device fast-path parity (coresets/incremental.py
+                # pre-drawn branch, ported shard-local): pre-draw the
                 # WHOLE refinement loop's posterior noise and per-shard
                 # subsample indices in batched kernels and pre-gather the
                 # local rows in one pass, instead of one
@@ -282,112 +282,10 @@ def make_sharded_incremental_builder(
                 lagged = config.refit_every > 1 and laplace_family
                 k_refit = config.refit_every
 
-                fstep = getattr(
-                    model, "fused_beta_shard_partials" if config.use_beta
-                    else "fused_ll_shard_partials", None)
-                want = config.fused_grad_step
-                # gridless kernel: the local (R, s_loc_pad) step block plus
-                # intermediates must fit scoped VMEM (always true at sharded
-                # per-device shapes; the check keeps parity with the
-                # single-chip gate). R uses the PADDED row counts the kernel
-                # actually receives (subsample rounded to 8, buffer to 128)
-                from ..ops.pallas_kernels import _round_up
-                _R = _round_up(n_opt_loc, 8) + _round_up(M_buf, 128)
-                _s_loc_pad = _round_up(S_loc, 128)
-                fits_vmem = _R * _s_loc_pad * 4 * 6 <= 12 * 1024 * 1024
-                use_fused = (
-                    fstep is not None and u_local is None and laplace_family
-                    and fits_vmem
-                    and (want if want is not None
-                         else jax.default_backend() == "tpu"))
-                if use_fused:
-                    # Shard-local fused step kernel
-                    # (ops/pallas_kernels.py::logreg_shard_step_partials):
-                    # this device's noise column block -> samples -> joint
-                    # [subsample; coreset] projection -> local reductions,
-                    # ONE launch. Only two collectives remain per step — a
-                    # psum('data') of the S_loc-column sums and ONE packed
-                    # psum('samp') of [core dot products, core row sums,
-                    # residual sum] — plus an O(M) XLA Adam epilogue. The
-                    # kernel skips centering (the full-S row mean is sharded
-                    # here); the gradient uses the exact uncentered identity
-                    # g = -(a - mu_core * b)/S (see kernel docstring), so
-                    # the trajectory differs from the centered path in float
-                    # low bits only. All padding happens HERE, outside the
-                    # scan, like the single-chip fused branch.
-                    from ..ops.pallas_kernels import (ADAM_B1, ADAM_B2,
-                                                      ADAM_EPS,
-                                                      adam_sclr_stack,
-                                                      make_refit_state,
-                                                      make_step_refit,
-                                                      pack_fused_step_rows,
-                                                      pad_fused_step_noise)
-                    f32 = jnp.float32
-                    d_th = z_all.shape[-1]
-                    # shard with no valid rows: its whole subsample block is
-                    # masked (has_rows = 0), contributing nothing to psums
-                    xin_all, M_pad, _ = pack_fused_step_rows(
-                        rows_all, st.pts, st.slot_mask, n_opt_loc, has_rows)
-                    # this device's pre-drawn noise COLUMN block, padded
-                    z_loc_all = pad_fused_step_noise(
-                        jax.lax.dynamic_slice_in_dim(z_all, ax_s * S_loc,
-                                                     S_loc, axis=1), S_loc)
-                    sc = jnp.asarray(st.beta, f32)[None]
-                    sclr_all = adam_sclr_stack(step_sizes)
-                    shard_scale_f = shard_scale.astype(f32)
-                    S_f = jnp.asarray(S, f32)
-                    refit_state = make_refit_state(
-                        sampler, st.pts, jnp.eye(d_th, dtype=f32))
-                    step_refit = make_step_refit(refit_state, lagged, k_refit,
-                                                 fit_aux, M_buf, dtype)
-
-                    def body(carry, inp):
-                        w, m1, m2, lap_c = carry
-                        i, sclr, xin, z = inp
-                        lap, linv = step_refit(w, i, lap_c)
-                        colsum, core_blk, corerow, wcore = fstep(
-                            xin, z, lap.mu.astype(f32)[None, :], linv, w, sc,
-                            S_loc)
-                        # collective 1: the Sigma-over-N target (data axis)
-                        total = jax.lax.psum(shard_scale_f * colsum, DATA_AXIS)
-                        r_unc = total - wcore                  # (1, s_loc_pad)
-                        a_loc = jax.lax.dot_general(
-                            r_unc, core_blk, (((1,), (1,)), ((), ())))  # (1, M_pad)
-                        b_loc = jnp.sum(r_unc, axis=1, keepdims=True)   # (1, 1)
-                        # collective 2: every S-axis reduction, packed
-                        packed = jax.lax.psum(
-                            jnp.concatenate([a_loc, corerow, b_loc], axis=1),
-                            SAMP_AXIS)
-                        a = packed[:, :M_pad]
-                        r = packed[:, M_pad:2 * M_pad]
-                        b = packed[:, 2 * M_pad:]
-                        g = -(a - (r / S_f) * b) / S_f
-                        # projected-Adam epilogue (nn_adam semantics, bias
-                        # corrections precomputed in sclr)
-                        m1 = ADAM_B1 * m1 + (1.0 - ADAM_B1) * g
-                        m2 = ADAM_B2 * m2 + (1.0 - ADAM_B2) * g * g
-                        w = jnp.maximum(
-                            w - sclr[0] * (m1 / sclr[1])
-                            / (ADAM_EPS + jnp.sqrt(m2 / sclr[2])), 0.0)
-                        return (w, m1, m2,
-                                (lap, linv) if lagged else fit_aux(lap)), None
-
-                    wp0 = jnp.zeros((1, M_pad), f32).at[0, :M_buf].set(
-                        st.wts.astype(f32))
-                    z0 = jnp.zeros_like(wp0)
-                    lap_c0 = refit_state(st.wts, aux0) if lagged else aux0
-                    (wp, _, _, carry), _ = jax.lax.scan(
-                        body, (wp0, z0, z0, lap_c0),
-                        (jnp.arange(T), sclr_all, xin_all, z_loc_all))
-                    aux = fit_aux(carry[0]) if lagged else carry
-                    w_new = wp[0, :M_buf].astype(st.wts.dtype)
-                    return st._replace(wts=w_new, sampler_aux=aux)
-
-                # XLA pre-drawn path. Pre-append the coreset buffer (constant
-                # across this refinement pass) to every step's subsample
-                # rows: joint projection is bit-identical to two separate
-                # calls (centering is per-row; the sharded _proj has no
-                # row-count kernel routing), one kernel chain instead of two.
+                # Pre-append the coreset buffer (constant across this
+                # refinement pass) to every step's subsample rows: joint
+                # projection is bit-identical to two separate calls
+                # (centering is per-row), one kernel chain instead of two.
                 rows_all = jnp.concatenate(
                     [rows_all,
                      jnp.broadcast_to(st.pts, (T, M_buf) + st.pts.shape[1:])],

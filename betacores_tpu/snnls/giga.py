@@ -7,9 +7,9 @@ iteration picks the column maximizing the geodesic-alignment score
 of bn orthogonal to the current iterate direction xw, then takes a
 closed-form geodesic step and rescales by the optimal projection onto b.
 
-TPU shape: the select phase is one (N, D) x (D, 2) matmul over the full
-column block, followed by VPU masking and a single argmax — exactly the
-fully-materialized ``lax``-loop design targeted in BASELINE.json.
+Shape: the select phase is one (N, D) x (D, 2) matmul over the full
+column block, followed by elementwise masking and a single argmax — a
+fully-materialized ``lax``-loop design.
 """
 
 from __future__ import annotations

@@ -21,8 +21,8 @@ at equal sparsity it typically reaches lower ||Aw - b|| than the greedy
 solvers (tested); the reference's one-per-step greedy semantics do not
 apply.
 
-TPU shape: every step is two (N,)-vector matvecs against A plus masked
-reductions — same MXU-resident pattern as GIGA. The nonneg top-K projection
+Shape: every step is two (N,)-vector matvecs against A plus masked
+reductions — the same pattern as GIGA. The nonneg top-K projection
 ranks by a stable argsort (ties -> lower index, the framework's
 distributed-argmax convention) so the sparsity budget K can stay a TRACED
 operand: one compiled program serves every K (latency rules in CLAUDE.md).

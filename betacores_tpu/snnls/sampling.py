@@ -5,8 +5,8 @@ p_n proportional to ||A_n|| (uniform for UniformSampling); after ``itrs``
 draws the weights are w = (counts / total) / p. The reference draws
 sequentially from the global numpy stream, but the result depends only on
 the multiset of draws, so the jitted build vectorizes all draws into one
-``jax.random.choice`` + bincount — an exact semantic match and a one-kernel
-TPU op. Monotone-error checking is disabled (reference sampling.py:16).
+``jax.random.choice`` + bincount — an exact semantic match and one
+device op. Monotone-error checking is disabled (reference sampling.py:16).
 """
 
 from __future__ import annotations

@@ -3,8 +3,8 @@
 Production serving wants the traced+lowered program as a versioned artifact:
 ship the bytes, load them in a worker that never imports the model code, and
 call — no retracing, no Python-side model closure, and (with
-``platforms=("cpu", "tpu")``) one artifact that runs on the dev box and the
-pod. This is the serving-side counterpart of the AOT dress rehearsal in
+``platforms=("cpu", "cuda")``) one artifact that runs on the dev box and the
+GPU server. This is the serving-side counterpart of the AOT dress rehearsal in
 ``tests/test_parallel.py`` (cross-platform lowering of the sharded build).
 
 The reference has no deployment story (research scripts; SURVEY.md section
@@ -51,7 +51,7 @@ def export_program(fn: Callable, *example_args,
     """Trace ``fn`` (jitted or plain) on ``example_args`` (concrete arrays or
     ``jax.ShapeDtypeStruct`` specimens — only shape/dtype are read) and
     return the serialized program bytes. ``platforms`` lowers for several
-    backends in one artifact (e.g. ``("cpu", "tpu")``); default is the
+    backends in one artifact (e.g. ``("cpu", "cuda")``); default is the
     current backend."""
     _register_framework_pytrees()
     jfn = fn if isinstance(fn, jax.stages.Wrapped) else jax.jit(fn)

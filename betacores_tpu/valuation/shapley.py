@@ -8,7 +8,7 @@ the posterior fit to the prefix's data points, with per-group size caps)
 is evaluated at each prefix; each group accumulates its marginal
 contribution, normalized by occurrence counts.
 
-TPU-native design replacing the reference's Pool(100) of Stan fits:
+On-device design replacing the reference's Pool(100) of Stan fits:
   * the value function fits a jitted Newton-Laplace posterior on the FULL
     (N, d) data with a {0, 1} membership weight vector — static shapes, so
     every (permutation, prefix) evaluation is the same compiled program;
@@ -50,7 +50,7 @@ def capped_member_mask(key: jax.Array, groups: Groups, cap: Optional[int], n_dat
 
 def logreg_laplace_value_fn(n_samples: int = 256, n_newton: int = 10) -> Callable:
     """Value of a data subset = posterior-predictive test accuracy under the
-    Laplace approximation (TPU replacement for the reference's per-subset
+    Laplace approximation (on-device replacement for the reference's per-subset
     Stan NUTS fit, group_selection.py:166-171).
 
     Returns ``value(key, w, Z, Xt, Yt)``: the data arrays are call-time

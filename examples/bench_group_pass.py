@@ -1,17 +1,19 @@
-"""Group-mode build roofline microbenchmarks (VERDICT round-3 item 6).
+"""Group-mode build microbenchmarks.
 
 The group build's per-step cost is one full (N, S) projection followed by a
 (G, S) group reduction (select) or a total over groups (optimize). XLA
-lowers ``segment_sum`` to a scatter-add, which serializes on TPU; this
+lowers ``segment_sum`` to a scatter-add; the alternative is a one-hot
+matmul (coresets/groups.py ONEHOT_MAX_BYTES chooses between them). This
 script measures, at movielens-groups scale and a larger webspam-like shape:
 
   proj      projection + plain column sum (the streaming floor)
   segsum    projection + segment_sum group reduction        (old select path)
-  onehot    projection + one-hot MXU matmul group reduction (new select path)
+  onehot    projection + one-hot matmul group reduction     (new select path)
   opt_old   segment_sum group reduction summed over groups  (old optimize)
   opt_new   masked weighted column sum                      (new optimize)
 
-Same in-device lax.scan timing recipe as bench_select_pass.py (CLAUDE.md).
+Same in-device lax.scan timing recipe as bench_select_pass.py; run it on
+a GPU.
 """
 
 from __future__ import annotations
@@ -19,8 +21,6 @@ from __future__ import annotations
 import argparse
 import sys
 import time
-
-RT_S = 0.026
 
 
 def run_shape(N, G, S, d, reps):
@@ -78,11 +78,11 @@ def run_shape(N, G, S, d, reps):
                 return acc + body(Z, th, gid), None
             return lax.scan(step, jnp.float32(0.0), ths)[0]
 
-        r = float(f(Z, ths, gid))  # compile + warm
+        jax.block_until_ready(f(Z, ths, gid))  # compile + warm
         t0 = time.perf_counter()
-        r = float(f(Z, ths, gid))
+        r = float(jax.block_until_ready(f(Z, ths, gid)))
         t = time.perf_counter() - t0
-        per_ms = (t - RT_S) / reps * 1e3
+        per_ms = t / reps * 1e3
         out[name] = per_ms
         print(f"  {name:8s} {per_ms:8.3f} ms/pass  (acc={r:.4g})")
     return out
@@ -91,7 +91,7 @@ def run_shape(N, G, S, d, reps):
 def run_end_to_end(N, G, S, d, M_groups, opt_itrs):
     """The REAL group builder (make_group_incremental_builder) at scale,
     reference group semantics (n_subsample_select=None — score every group;
-    n_subsample_opt=None — exact gradient), end to end on chip."""
+    n_subsample_opt=None — exact gradient), end to end on the device."""
     import time
 
     import jax

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Measure the native C++ loader against numpy text parsing (VERDICT round-3
-item 5: the docstring's speedup claim must be a measured number or retracted).
+"""Measure the native C++ loader against numpy text parsing (a speedup
+claim must be a measured number).
 
 Generates webspam-shaped synthetic files (the reference's largest published
 config: d=127 features + label, N=126,185 — data_tabulate.py:3-7) as CSV and

@@ -5,7 +5,7 @@ Reproduces reference examples/zellner_logreg/main.py: load an npz dataset
 (or generate a synthetic one), whiten covariates, inject f_rate corruption,
 build {BCORES, SVI, BPSVI, RAND, PRIOR} coresets up to size M with a
 Laplace-approximation posterior sampler, then evaluate each coreset size by
-sampling the weighted posterior with the TPU-native HMC sampler (replacing
+sampling the weighted posterior with the on-device HMC sampler (replacing
 the reference's weighted-Stan NUTS) and computing test accuracy and
 predictive log-likelihood. (The reference's evaluation loop dies at an
 ``exit()`` debug artifact after the first MCMC, main.py:223 — completed
@@ -81,8 +81,8 @@ def main():
     ap.add_argument("--n-subsample-select", type=int, default=1000)
     ap.add_argument("--refit-every", type=int, default=1,
                     help="lagged Laplace refits in the Adam loop (1 = "
-                         "reference every-step parity; ~4 is a measured "
-                         "quality-free 20%% latency cut, RESULTS.md)")
+                         "reference every-step parity; ~4 keeps the "
+                         "downstream accuracy, tests/test_coresets.py)")
     ap.add_argument("--dedup-select", action="store_true",
                     help="mask already-selected indices out of the candidate "
                          "argmax so every selection adds a distinct point "
@@ -137,8 +137,8 @@ def main():
     sampler_w = logreg_laplace_sampler(diag=args.graddiag)
     sched = lambda i: args.i0 / (1.0 + i)
     S = args.proj_dim
-    # full bundles (model=), not loose callbacks: routes the fused Pallas
-    # projection + grad-step kernels through the eager API on TPU
+    # full bundles (model=), not loose callbacks: routes the refinement-step
+    # kernel through the eager API on a GPU
     prj_w = bc.BlackBoxProjector(sampler_w, S, model=model)
     prj_bw = bc.BetaBlackBoxProjector(sampler_w, S, model=model)
 

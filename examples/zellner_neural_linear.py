@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Neural-linear batch active-learning experiment.
 
-Reproduces reference examples/zellner_neural_linear/main.py: a flax MLP
+Reproduces reference examples/zellner_neural_linear/main.py: an MLP
 feature extractor with an exact Bayesian last layer; data batched into
 groups; group-corruption injected; {BCORES, SVI, RAND} group-mode coresets
 warm-started from an initial batch, interleaving coreset iterations with
@@ -109,7 +109,7 @@ def main():
         print(f"dataset {args.dataset}: N={X.shape[0]} d={X.shape[1]} "
               f"test={Xt.shape[0]} (y in [{Y.min():.3g}, {Y.max():.3g}])")
     else:
-        # real regression npz (VERDICT r2 item 2): same (X, y, Xt, yt)
+        # real regression npz: same (X, y, Xt, yt)
         # format as the logreg sets; ratings-as-regression for movielens5
         from betacores_tpu.data.loaders import load_npz, reference_dataset_path
 

@@ -3,7 +3,7 @@
 // The reference's data pipeline parses CSV / svmlight text in pure Python
 // (reference examples/data/preproc_webspam.py, preproc_covtype.py,
 // process_housing_prices.py) — minutes per file at UCI scale. This is the
-// TPU framework's native-runtime counterpart: a multithreaded chunked
+// framework's native-runtime counterpart: a multithreaded chunked
 // parser producing dense float32 row-major matrices, exposed through a
 // plain C ABI consumed via ctypes (no pybind11 in the image).
 //

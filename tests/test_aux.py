@@ -200,23 +200,70 @@ def test_plotting_helpers(tmp_path):
 def test_persistent_cache_repoints_and_survives_bad_env(tmp_path, monkeypatch):
     from betacores_tpu.utils import cache
 
+    import jax
+
+    prev = jax.config.jax_compilation_cache_dir
     monkeypatch.setattr(cache, "_enabled_dir", None)
     monkeypatch.delenv("BETACORES_NO_COMPILATION_CACHE", raising=False)
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
     # malformed size cap must not raise (import-time path)
     monkeypatch.setenv("BETACORES_COMPILATION_CACHE_MAX_GB", "10GB")
     # cpu-only platforms skip (conftest forces cpu)
     assert cache.enable_persistent_cache(str(tmp_path / "a")) is None
 
-    # pretend a tpu platform: enabling, then re-pointing to a NEW dir works
-    import jax
-
+    # pretend a GPU platform: enabling, then re-pointing to a NEW dir works
     monkeypatch.setattr(cache, "_cpu_only", lambda: False)
     d1 = cache.enable_persistent_cache(str(tmp_path / "a"))
-    d2 = cache.enable_persistent_cache()              # idempotent
+    d2 = cache.enable_persistent_cache(str(tmp_path / "a"))  # idempotent
     d3 = cache.enable_persistent_cache(str(tmp_path / "b"))  # explicit re-point
     assert d1 == str(tmp_path / "a") == d2
     assert d3 == str(tmp_path / "b")
-    jax.config.update("jax_compilation_cache_dir", None)
+    jax.config.update("jax_compilation_cache_dir", prev)
+
+
+def test_persistent_cache_env_dir_wins(tmp_path, monkeypatch):
+    """JAX_COMPILATION_CACHE_DIR is the cache, whatever the caller asks for
+    and even in a CPU-only process; no other directory is set."""
+    import jax
+
+    from betacores_tpu.utils import cache
+
+    prev = jax.config.jax_compilation_cache_dir
+    monkeypatch.setattr(cache, "_enabled_dir", None)
+    monkeypatch.delenv("BETACORES_NO_COMPILATION_CACHE", raising=False)
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "env"))
+    try:
+        assert cache.enable_persistent_cache(str(tmp_path / "arg")) == str(tmp_path / "env")
+        assert cache.enable_persistent_cache() == str(tmp_path / "env")
+        assert jax.config.jax_compilation_cache_dir == str(tmp_path / "env")
+        assert not (tmp_path / "arg").exists()
+    finally:
+        jax.config.update("jax_compilation_cache_dir", prev)
+
+
+def test_persistent_cache_default_dir_is_in_checkout(monkeypatch):
+    """Without JAX_COMPILATION_CACHE_DIR the cache sits at the fixed,
+    gitignored path <checkout>/.cache/jax_compile, never under HOME."""
+    import jax
+
+    from betacores_tpu.utils import cache
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    expected = os.path.join(root, ".cache", "jax_compile")
+    assert cache.DEFAULT_DIR == expected
+    prev = jax.config.jax_compilation_cache_dir
+    monkeypatch.setattr(cache, "_enabled_dir", None)
+    monkeypatch.setattr(cache, "_cpu_only", lambda: False)
+    monkeypatch.delenv("BETACORES_NO_COMPILATION_CACHE", raising=False)
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    monkeypatch.setenv("HOME", "/nonexistent-home")
+    try:
+        assert cache.enable_persistent_cache() == expected
+        assert jax.config.jax_compilation_cache_dir == expected
+    finally:
+        jax.config.update("jax_compilation_cache_dir", prev)
+    with open(os.path.join(root, ".gitignore")) as fh:
+        assert ".cache/" in fh.read().split()
 
 
 def test_shf_params_checkpoint_roundtrip(tmp_path):
@@ -302,7 +349,7 @@ def test_export_program_roundtrip(tmp_path, rng):
     """utils/export.py deployment artifacts: the serialized+reloaded build
     program is bit-identical to the live builder, itrs stays a traced
     operand (one artifact, every build size), and a multi-platform artifact
-    lowers for tpu without TPU hardware."""
+    lowers for cuda without a GPU."""
     import jax
 
     from betacores_tpu.coresets import IncrementalConfig, init_state, make_incremental_builder
@@ -340,7 +387,7 @@ def test_export_program_roundtrip(tmp_path, rng):
                                   np.asarray(builder.build(key, st0, 3).idcs))
 
     # cross-platform artifact (serving parity with the AOT dress rehearsal)
-    multi = export_incremental_build(builder, X, st0, platforms=("cpu", "tpu"))
+    multi = export_incremental_build(builder, X, st0, platforms=("cpu", "cuda"))
     st_m = load_program(multi)(X, key, st0, jnp.asarray(2, jnp.int32))
     np.testing.assert_array_equal(np.asarray(st_m.idcs),
                                   np.asarray(builder.build(key, st0, 2).idcs))
@@ -378,3 +425,51 @@ def test_export_weighted_builder_defaults_to_weighted_program(tmp_path, rng):
     np.testing.assert_array_equal(np.asarray(st_art.idcs), np.asarray(st_live.idcs))
     sel = np.asarray(st_art.idcs)[: int(st_art.m)]
     assert (sel >= 20).all(), sel
+
+
+def test_export_logreg_headline_builder_for_cpu_and_cuda(rng):
+    """The headline model (logreg + warm-started Newton-Laplace sampler on
+    the pre-drawn refinement path) exports as one ("cpu", "cuda") artifact
+    on a host without a GPU; the CUDA half lowers its Cholesky to cuSOLVER,
+    and the CPU half reproduces the live build exactly."""
+    import jax
+
+    from betacores_tpu.coresets import IncrementalConfig, init_state, make_incremental_builder
+    from betacores_tpu.inference import logreg_laplace_sampler
+    from betacores_tpu.models import logreg
+    from betacores_tpu.utils import export_incremental_build, load_program
+
+    X = rng.normal(1.0, 1.0, size=(300, 4))
+    y = np.where(rng.uniform(size=300) < 0.8, 1.0, -1.0)
+    Z = jnp.asarray(y[:, None] * X)
+    b = make_incremental_builder(
+        Z, logreg.bundle(), logreg_laplace_sampler(),
+        IncrementalConfig(projection_dim=8, n_subsample_select=32,
+                          n_subsample_opt=20, opt_itrs=4, use_beta=True))
+    st0 = init_state(8, 4, beta=0.3, dtype=Z.dtype)
+    key = jax.random.key(1)
+    art = export_incremental_build(b, Z, st0, platforms=("cpu", "cuda"))
+    exp = jax.export.deserialize(art)
+    assert exp.platforms == ("cpu", "cuda")
+    assert "cusolver" in exp.mlir_module()
+    st_art = load_program(art)(Z, key, st0, jnp.asarray(3, jnp.int32))
+    st_live = b.build(key, st0, 3)
+    np.testing.assert_array_equal(np.asarray(st_art.idcs), np.asarray(st_live.idcs))
+    np.testing.assert_array_equal(np.asarray(st_art.wts), np.asarray(st_live.wts))
+
+
+def test_trace_reduction_interval_union():
+    """examples/trace_build.py's busy time is the union of device event
+    intervals: overlaps and nesting count once, gaps not at all."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "trace_build", os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "examples", "trace_build.py"))
+    tb = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tb)
+    assert tb.union_ns([]) == 0
+    assert tb.union_ns([(0, 10)]) == 10
+    assert tb.union_ns([(0, 10), (5, 15)]) == 15          # overlap
+    assert tb.union_ns([(0, 10), (2, 3), (20, 25)]) == 15  # nested + gap
+    assert tb.union_ns([(20, 25), (0, 10), (10, 12)]) == 17  # unsorted, touching

@@ -219,7 +219,7 @@ def test_group_refine_and_uniform_group_trace(setup):
 
 
 def test_group_build_matches_oracle(setup):
-    """VERDICT r2 item 6: the group-append trajectory (reference
+    """the group-append trajectory (reference
     bcores.py:91-123) golden-checked against an independent NumPy oracle
     (deterministic sampler, no subsampling) — the existing equivalence
     tests (group build == sharded group build) would pass a shared bug in

@@ -241,7 +241,7 @@ def test_linreg_likelihood_f32_stable_at_large_targets():
     """Regression (round-3 review): the reference expands (y - pred)^2 into
     y^2 - 2 pred y + pred^2 (model_linreg.py:10), which catastrophically
     cancels in f32 at |y| >> |resid|. The factored form must match the f64
-    answer at TPU-realistic unstandardized targets."""
+    answer at realistic unstandardized targets."""
     from betacores_tpu.models import linreg
 
     rng = np.random.default_rng(0)

@@ -230,3 +230,32 @@ def test_multiclass_weighted_hmc_eval():
     assert (r < 1.1).all(), r
     post_mean = np.asarray(chains).reshape(-1, K * d).mean(0)
     assert np.linalg.norm(post_mean - np.asarray(mu)) < 1.0
+
+
+def test_xla_beta_projection_matches_float64_numpy(rng):
+    """The plain-XLA centred K=5 softmax projections (the path every build
+    takes) against a float64 NumPy reference written from the formulas:
+    log p_y = x.th_y - logsumexp_k x.th_k and the density-power surrogate
+    (beta+1)/beta p_y^beta - sum_k p_k^(1+beta), both centred over S."""
+    from betacores_tpu.ops.projection import project_beta, project_ll
+
+    K, d, N, S, beta = 5, 10, 300, 100, 0.1
+    x = rng.normal(size=(N, d))
+    y = rng.integers(0, K, N)
+    th = rng.normal(size=(S, K * d)) * 0.5
+    logits = np.einsum("nd,skd->nsk", x, th.reshape(S, K, d))
+    mx = logits.max(axis=2, keepdims=True)
+    lp = logits - (mx + np.log(np.exp(logits - mx).sum(axis=2, keepdims=True)))
+    lp_y = np.take_along_axis(lp, y[:, None, None], axis=2)[:, :, 0]
+    fb = (beta + 1.0) / beta * np.exp(beta * lp_y) - np.exp((1.0 + beta) * lp).sum(axis=2)
+    centre = lambda v: v - v.mean(axis=1, keepdims=True)
+
+    model = mc.bundle(K)
+    Z = jnp.asarray(np.c_[x, y].astype(np.float32))
+    TH = jnp.asarray(th.astype(np.float32))
+    got_ll = np.asarray(project_ll(model, Z, TH))
+    got_b = np.asarray(project_beta(model, Z, TH, jnp.float32(beta)))
+    assert got_ll.shape == got_b.shape == (N, S)
+    # float32 inputs: |log p| reaches ~10, so 1e-4 absolute is ~1e-5 relative
+    np.testing.assert_allclose(got_ll, centre(lp_y), atol=1e-4)
+    np.testing.assert_allclose(got_b, centre(fb), atol=1e-4)

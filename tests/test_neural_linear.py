@@ -91,3 +91,60 @@ def test_contextual_coreset_build(rng):
     balg.ctx = nl.variables
     balg.build(2, 2)
     assert balg.state.m >= 1
+
+
+def test_encoder_batchnorm_train_eval_contract(rng):
+    """The plain-JAX encoder keeps the flax parameter names the decay mask
+    relies on; in training each BatchNorm normalizes with the batch mean
+    and biased variance and moves its running statistics by
+    r <- 0.9 r + 0.1 batch; in evaluation it normalizes with the running
+    statistics. Checked layer by layer against NumPy in float64."""
+    from betacores_tpu.models.neural_linear import Encoder, _mask_kernels
+
+    n, d, F = 32, 5, 7
+    x = rng.normal(size=(n, d))
+    enc = Encoder(out_features=F)
+    v = enc.init(jax.random.key(0), jnp.asarray(x[:2]))
+    assert set(v["params"]) == {"Dense_0", "Dense_1", "BatchNorm_0", "BatchNorm_1"}
+    assert v["params"]["Dense_0"]["kernel"].shape == (d, F)
+    assert v["params"]["Dense_1"]["kernel"].shape == (F, F)
+    mask = _mask_kernels(v["params"])
+    assert mask["Dense_0"] == {"kernel": True, "bias": False}
+    assert mask["BatchNorm_1"] == {"scale": True, "bias": False}
+    # non-trivial scale/bias and running statistics
+    p = jax.tree_util.tree_map(lambda a: a + 0.3, v["params"])
+    stats = jax.tree_util.tree_map(lambda a: a + 0.2, v["batch_stats"])
+    var = {"params": p, "batch_stats": stats}
+
+    def numpy_forward(train):
+        h, new = x, {}
+        for i in range(2):
+            dense, bn = p[f"Dense_{i}"], p[f"BatchNorm_{i}"]
+            run = stats[f"BatchNorm_{i}"]
+            h = h @ np.asarray(dense["kernel"]) + np.asarray(dense["bias"])
+            if train:
+                mean, vr = h.mean(axis=0), h.var(axis=0)
+                new[i] = (0.9 * np.asarray(run["mean"]) + 0.1 * mean,
+                          0.9 * np.asarray(run["var"]) + 0.1 * vr)
+            else:
+                mean, vr = np.asarray(run["mean"]), np.asarray(run["var"])
+            h = ((h - mean) / np.sqrt(vr + 1e-5) * np.asarray(bn["scale"])
+                 + np.asarray(bn["bias"]))
+            h = np.maximum(h, 0.0)
+        return h, new
+
+    feats, mutated = enc.apply(var, jnp.asarray(x), train=True,
+                               mutable=["batch_stats"])
+    want, new = numpy_forward(train=True)
+    np.testing.assert_allclose(np.asarray(feats), want, rtol=1e-10, atol=1e-12)
+    for i in range(2):
+        got = mutated["batch_stats"][f"BatchNorm_{i}"]
+        np.testing.assert_allclose(np.asarray(got["mean"]), new[i][0], rtol=1e-10)
+        np.testing.assert_allclose(np.asarray(got["var"]), new[i][1], rtol=1e-10)
+    feats_eval = enc.apply(var, jnp.asarray(x), train=False)
+    want_eval, _ = numpy_forward(train=False)
+    np.testing.assert_allclose(np.asarray(feats_eval), want_eval, rtol=1e-10, atol=1e-12)
+    # evaluation leaves the running statistics alone
+    _, same = enc.apply(var, jnp.asarray(x), train=False, mutable=["batch_stats"])
+    np.testing.assert_array_equal(np.asarray(same["batch_stats"]["BatchNorm_0"]["mean"]),
+                                  np.asarray(stats["BatchNorm_0"]["mean"]))

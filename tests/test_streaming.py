@@ -417,7 +417,7 @@ def test_review_regressions_weighted_edges(rng):
 
 
 def test_weighted_target_matches_oracle(rng):
-    """VERDICT r2 item 6: the data_weights tangent target golden-checked
+    """the data_weights tangent target golden-checked
     against an independent NumPy oracle (deterministic sampler, full-data)
     — the internal equivalences above (u=ones == unweighted, integer u ==
     row duplication) would both pass a shared weighted-math bug."""
